@@ -1,11 +1,11 @@
-"""gr_lora_tpu — a TPU-native LoRa PHY framework.
+"""gr_lora_tpu — a LoRa PHY framework in JAX for a GPU.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of the
+A from-scratch JAX/XLA re-design of the capabilities of the
 jkadbear/gr-lora GNU Radio module: chirp modulation, single-packet
 demodulation, the Pyramid real-time collision decoder, a weak-signal
 demodulator, and the full bit-level codec (whitening, Hamming FEC, diagonal
 interleaving, Gray mapping, CRC16) — batched over channels and spreading
-factors and sharded over TPU device meshes.
+factors and sharded over device meshes.
 """
 
 from .config import LoraConfig, PeakSearch

@@ -30,6 +30,7 @@ import sys
 
 import numpy as np
 
+from ..runtime import enable_compile_cache
 from .common import add_config_args, config_from_args, read_capture
 
 
@@ -162,6 +163,7 @@ def main(argv=None) -> int:
                          "packets leave the chip)")
     add_config_args(ap)
     args = ap.parse_args(argv)
+    enable_compile_cache()
     base = config_from_args(args)
     sfs = tuple(int(s) for s in args.sfs.split(","))
     if (args.capture is None) == (args.live is None):

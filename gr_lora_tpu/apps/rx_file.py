@@ -11,6 +11,7 @@ from __future__ import annotations
 import argparse
 import sys
 
+from ..runtime import enable_compile_cache
 from .common import add_config_args, config_from_args, print_pdu, read_capture
 
 
@@ -20,6 +21,7 @@ def main(argv=None) -> int:
     ap.add_argument("--samp-rate", type=float, default=1e6)
     add_config_args(ap)
     args = ap.parse_args(argv)
+    enable_compile_cache()
     cfg = config_from_args(args)
 
     from ..pipeline.frontend import replay

@@ -25,6 +25,7 @@ import sys
 
 import numpy as np
 
+from ..runtime import enable_compile_cache
 from .common import add_config_args, config_from_args, print_pdu
 
 
@@ -79,6 +80,7 @@ def main(argv=None) -> int:
                          "(synchronous reads instead)")
     add_config_args(ap)
     args = ap.parse_args(argv)
+    enable_compile_cache()
     cfg = config_from_args(args)
     if abs(args.samp_rate - cfg.p * args.bw) > 1e-6:
         print(f"warning: samp_rate {args.samp_rate} != p*bw "

@@ -15,6 +15,7 @@ import argparse
 
 import numpy as np
 
+from ..runtime import enable_compile_cache
 from .common import add_config_args, config_from_args, write_capture
 
 
@@ -29,6 +30,7 @@ def main(argv=None) -> int:
     ap.add_argument("--samp-rate", type=float, default=1e6)
     add_config_args(ap)
     args = ap.parse_args(argv)
+    enable_compile_cache()
     cfg = config_from_args(args)
 
     from ..core.codec import encode

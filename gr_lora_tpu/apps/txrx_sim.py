@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import argparse
 
+from ..runtime import enable_compile_cache
 from .common import (
     DEFAULT_UDP_IN,
     DEFAULT_UDP_OUT,
@@ -50,6 +51,7 @@ def main(argv=None) -> int:
     ap.set_defaults(cr=4, implicit_header=True, ldr="on", fft_factor=10,
                     payload_len=5)
     args = ap.parse_args(argv)
+    enable_compile_cache()
     cfg = config_from_args(args)
 
     ok_any = False

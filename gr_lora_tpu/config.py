@@ -80,10 +80,12 @@ class LoraConfig:
     # "ldr-only" (beyond-reference, opt-in) disables it when !ldr — the same
     # rule the reference's own PLAIN demod applies (demod_impl.cc:280).
     weak_compensation: str = "reference"
-    precision: str = "highest"   # zoom-DFT matmul precision:
-                                 #   "highest" (f32, bit-stable peaks),
-                                 #   "default" (XLA default),
-                                 #   "bf16" (full-rate MXU, f32 accumulate)
+    precision: str = "highest"   # zoom-DFT matmul operands on the GPU,
+                                 # always with f32 accumulation:
+                                 #   "highest": f32 (bit-stable peaks),
+                                 #   "default": TF32 (XLA's default for
+                                 #     f32 dots on tensor cores),
+                                 #   "bf16": bf16
 
     def __post_init__(self):
         if not (6 <= self.sf <= 12):

@@ -8,7 +8,7 @@ channels simultaneously").  Here the two scaling axes become mesh axes:
 - ``ch`` (data parallel): independent frequency channels / spreading factors
   are sharded across devices and vmapped within a device.
 - ``t`` (sequence parallel): the unbounded IQ stream is split into fixed
-  time blocks with **overlap-save halos** — the TPU analog of the reference's
+  time blocks with **overlap-save halos** — the batched analog of the reference's
   ``set_history()`` sliding windows (demod_impl.cc:130).  Each shard receives
   a left halo (enough past samples to see a packet's full preamble, so every
   shard detects a boundary packet at the same sample index) and a right halo

@@ -5,7 +5,7 @@ backend: none"); BASELINE.md's north star shards the IQ stream's time axis
 over >= 2 hosts.  This module is that runtime:
 
 - ``initialize()`` wraps ``jax.distributed.initialize`` (coordinator
-  rendezvous; CPU processes use Gloo, TPU pods use the ICI/DCN fabric) so
+  rendezvous; CPU processes use Gloo, GPUs NCCL) so
   every process sees the GLOBAL device list.
 - ``make_multihost_mesh()`` arranges the global devices into the gateway's
   ``{ch, t}`` grid.  Device order from ``jax.devices()`` groups processes
@@ -35,8 +35,8 @@ def initialize(coordinator_address: str, num_processes: int,
                process_id: int, platform: str | None = None) -> None:
     """Join the distributed runtime.  Call before any other jax use.
 
-    For CPU validation runs set ``platform='cpu'`` (forces the config knob —
-    some TPU plugins ignore the JAX_PLATFORMS env var) and set
+    For CPU validation runs set ``platform='cpu'`` (forces the config knob
+    whatever the environment says) and set
     ``XLA_FLAGS=--xla_force_host_platform_device_count=N`` per process.
     """
     import jax

@@ -4,7 +4,7 @@ The reference's headline feature — real-time collision decoding
 (pyramid_demod_impl.cc, README.md:2-5) — is single-channel, single-stream.
 This module scales it to a gateway's channel matrix:
 
-- **Dense half (TPU)**: the peak lattice (models/pyramid.peak_lattice_fn)
+- **Dense half (device)**: the peak lattice (models/pyramid.peak_lattice_fn)
   is vmapped over channels
   and, given a mesh, shard_mapped over a ``{ch, t}`` device grid: channels
   are pure data parallelism; the time axis is split into blocks with an

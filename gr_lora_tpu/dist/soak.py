@@ -2,7 +2,7 @@
 
 VERDICT r3 task 8 / SURVEY §5 long-context row.  One shared generator +
 checker used by BOTH tests/test_soak.py (CPU mesh, minutes of simulated
-air) and ``bench.py --mode soak`` (TPU, >= 30 simulated minutes per
+air) and ``bench.py --mode soak`` (GPU, >= 30 simulated minutes per
 channel), so the hygiene assertions are identical in both places:
 
 - every injected single packet decodes byte-exact exactly once (DeviceRing

@@ -2,7 +2,7 @@
 
 The FSM demodulator walks every symbol period of every channel x SF stream
 even when the air is idle.  Real gateway traffic is sparse (sub-1% duty
-cycle), so this receiver splits the work TPU-style (the two-pass
+cycle), so this receiver splits the work in two passes (the two-pass
 detect-then-extract design from SURVEY.md §7.4):
 
 1. **Scan (dense, batched)**: per SF, one symbol-strided folded up-chirp

@@ -1,4 +1,4 @@
-"""Receivers and transmitters: the six reference blocks, TPU-native."""
+"""Receivers and transmitters: the six reference blocks as JAX programs."""
 
 from .decoder import Decoder
 from .demodulator import (

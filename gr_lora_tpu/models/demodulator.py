@@ -2,7 +2,7 @@
 
 A faithful re-expression of the reference 7-state FSM
 (demod_impl.cc:293-628) as one jit-compiled ``lax.while_loop`` over a sample
-pointer.  Every per-iteration FFT/argmax is an MXU zoom-DFT (ops/dft.py); all
+pointer.  Every per-iteration FFT/argmax is a zoom-DFT matmul (ops/dft.py); all
 state is a fixed-shape pytree, so the whole demodulator — including the
 explicit-header feedback, which the reference routes through an async
 message-port round-trip (demod_impl.cc:508-554 + decode_impl.cc:345-355) —
@@ -460,7 +460,7 @@ def demod_stream_fn(cfg: LoraConfig, block_len: int, max_packets: int = 8):
 class StreamingDemodulator:
     """Host-facing stateful wrapper: feed arbitrary chunks, collect packets.
 
-    The TPU-side step is jitted once per block size; partial packets survive
+    The device step is jitted once per block size; partial packets survive
     chunk boundaries because the whole FSM state is carried, so no overlap
     re-processing is needed (unlike overlap-save batch mode)."""
 

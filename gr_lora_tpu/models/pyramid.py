@@ -1,10 +1,10 @@
 """Pyramid real-time collision decoder (INFOCOM 2021).
 
-TPU-first split of the reference pyramid_demod block
+Device/host split of the reference pyramid_demod block
 (lib/pyramid_demod_impl.cc):
 
-- **Dense lattice (TPU, jitted)**: every overlapped hop (hop = symbol /
-  OVERLAP_FACTOR) is dechirped and transformed by the MXU zoom-DFT twice
+- **Dense lattice (device, jitted)**: every overlapped hop (hop = symbol /
+  OVERLAP_FACTOR) is dechirped and transformed by the zoom-DFT matmul twice
   (unwindowed + Kaiser-windowed, pyramid_demod_impl.cc:569-603), folded,
   local-max masked, thresholded, and reduced to the top-M spectral peaks per
   hop — all as one batched XLA program over [hops, bins].
@@ -40,6 +40,7 @@ from ..config import (
 )
 from ..ops.cplx import to_ri
 from ..ops.dechirp import pyramid_spectra
+from ..ops.overlap_dft import fast_pyramid_spectra
 
 _TS_MOD = TIMESTAMP_MOD
 
@@ -49,8 +50,52 @@ def _pmod(x: int, n: int) -> int:
 
 
 # ---------------------------------------------------------------------------
-# Dense lattice (TPU).
+# Dense lattice (device).
 # ---------------------------------------------------------------------------
+
+#: Lattice spectra backends.  'xla' is the direct zoom-DFT matmul over
+#: framed hops (ops/dechirp.pyramid_spectra) below the direct plan's size
+#: cap and the overlap decomposition above it; 'fast' is always the
+#: overlap decomposition (ops/overlap_dft).  Both are plain jnp/lax.
+LATTICE_BACKENDS = ("xla", "fast")
+
+
+def lattice_formulation(cfg: LoraConfig, backend: str) -> str:
+    """'direct' or 'overlap': the spectra formulation ``backend`` runs at
+    ``cfg``.  The direct two-variant plan only exists below the matmul
+    size cap (ops/dft._DIRECT_MAX_ELEMS); beyond it (large sf x p x
+    fft_factor) the overlap-decomposed path is the one that scales."""
+    from ..ops.dft import _DIRECT_MAX_ELEMS
+    if backend == "xla" and \
+            cfg.num_samples * 4 * cfg.bin_size <= _DIRECT_MAX_ELEMS:
+        return "direct"
+    return "overlap"
+
+
+def lattice_spectra(cfg: LoraConfig, num_hops: int, backend: str = "xla"):
+    """iq float32[T, 2] -> per-hop dense (fft_add, fft_add_w, h_single),
+    each [num_hops, K], through the formulation ``backend`` runs at
+    ``cfg`` (lattice_formulation)."""
+    if backend not in LATTICE_BACKENDS:
+        raise ValueError(f"unknown lattice backend {backend!r}; "
+                         f"expected one of {LATTICE_BACKENDS}")
+    if lattice_formulation(cfg, backend) == "overlap":
+        return lambda iq: fast_pyramid_spectra(iq, cfg, num_hops)
+    n = cfg.num_samples
+    hop = n // PYRAMID_OVERLAP_FACTOR
+    r = n // hop
+
+    def spectra(iq):
+        chunks = iq[: (num_hops + r - 1) * hop].reshape(-1, hop, 2)
+        # Overlapped frames as r static slices — no gather.
+        frames = jnp.stack(
+            [jax.lax.slice_in_dim(chunks, k, k + num_hops, axis=0)
+             for k in range(r)], axis=1,
+        ).reshape(num_hops, n, 2)
+        return pyramid_spectra(frames, cfg)
+
+    return spectra
+
 
 @lru_cache(maxsize=None)
 def peak_lattice_fn(cfg: LoraConfig, num_hops: int, max_peaks: int = 16,
@@ -78,40 +123,6 @@ def peak_lattice_fn(cfg: LoraConfig, num_hops: int, max_peaks: int = 16,
     """
     n = cfg.num_samples
     hop = n // PYRAMID_OVERLAP_FACTOR
-    r = n // hop
-
-    if backend in ("fused", "fused_direct"):
-        # In-kernel peak search (round 4): the dense spectra never reach
-        # HBM — only [H, M] peak tuples do.  Preference order: the rDFT
-        # recombination kernel (round 5 — half the MXU work, whole bin
-        # axis VMEM-resident) where its weight block fits; the direct
-        # formulation for small frames; bin-tiled overlap formulation for
-        # large SF x fft_factor (falls through to the block wrapper
-        # below: the chunk spectra G are still materialized per block).
-        # 'fused_direct' pins the round-4 direct kernel (kernel A/B).
-        # Off-TPU these run interpreted.
-        # NOTE: 'fused' is a bf16-dot-class backend BY DEFINITION where
-        # the rdft/direct kernels dispatch (their dots are bf16 with f32
-        # accumulate regardless of cfg.precision — the precision ladder
-        # governs the dense spectra backends).  Callers who need
-        # bit-stable f32 extraction pick 'xla'/'fast'/'fastp'
-        # explicitly; at SF>=10 x ff=8 the fused tier itself falls to
-        # the f32 overlap kernel.
-        from ..ops.dft import _DIRECT_MAX_ELEMS
-        from ..ops.pallas_peaks import overlap_peaks_supported
-        from ..ops.pallas_rdft import rdft_peaks_supported
-        interpret = jax.default_backend() != "tpu"
-        if backend == "fused" and rdft_peaks_supported(cfg):
-            from ..ops.pallas_rdft import make_rdft_peaks
-            return make_rdft_peaks(cfg, num_hops, max_peaks,
-                                   interpret=interpret)
-        if n * 4 * cfg.bin_size <= _DIRECT_MAX_ELEMS:
-            from ..ops.pallas_direct import make_direct_peaks
-            return make_direct_peaks(cfg, num_hops, max_peaks,
-                                     interpret=interpret)
-        backend = "fused"
-        if not overlap_peaks_supported(cfg):
-            backend = "xla"     # dense spectra + XLA peak epilogue
 
     if block_hops is not None and num_hops > block_hops:
         inner = peak_lattice_fn(cfg, block_hops, max_peaks, backend)
@@ -134,63 +145,7 @@ def peak_lattice_fn(cfg: LoraConfig, num_hops: int, max_peaks: int = 16,
 
         return run_blocked
 
-    if backend == "fused":
-        from ..ops.pallas_peaks import make_overlap_peaks
-        return make_overlap_peaks(
-            cfg, num_hops, max_peaks,
-            interpret=jax.default_backend() != "tpu")
-
-    if backend == "xla":
-        # The direct two-variant plan only exists below the matmul size
-        # cap (ops/dft._DIRECT_MAX_ELEMS); beyond it (large sf x p x
-        # fft_factor) the overlap-decomposed path is the one that scales.
-        from ..ops.dft import _DIRECT_MAX_ELEMS
-        if n * 4 * cfg.bin_size > _DIRECT_MAX_ELEMS:
-            backend = "fast"
-
-    def spectra_xla(iq):
-        chunks = iq[: (num_hops + r - 1) * hop].reshape(-1, hop, 2)
-        frames = jnp.stack(
-            [jax.lax.slice_in_dim(chunks, k, k + num_hops, axis=0)
-             for k in range(r)], axis=1,
-        ).reshape(num_hops, n, 2)
-        return pyramid_spectra(frames, cfg)
-
-    def spectra_pallas(iq):
-        from ..ops.pallas_frontend import make_pallas_spectra, row_chunks
-        # Mosaic kernels need a real TPU; interpret elsewhere (tests).
-        interpret = jax.default_backend() != "tpu"
-        fn = make_pallas_spectra(cfg, num_hops, interpret=interpret)
-        fa, faw, hs = fn(row_chunks(iq, cfg, num_hops))
-        return fa[:num_hops], faw[:num_hops], hs[:num_hops]
-
-    def spectra_fast(iq):
-        from ..ops.overlap_dft import fast_pyramid_spectra
-        return fast_pyramid_spectra(iq, cfg, num_hops)
-
-    def spectra_fastp(iq):
-        from ..ops.pallas_overlap import make_overlap_spectra
-        interpret = jax.default_backend() != "tpu"
-        return make_overlap_spectra(cfg, num_hops, interpret=interpret)(iq)
-
-    def spectra_direct(iq):
-        # Grid-pipelined bf16 MXU kernel (ops/pallas_direct): ~2x the XLA
-        # direct path at the ff=8 collision zoom (docs/BENCH.md r3).
-        # Always bf16 inputs / f32 accumulate regardless of cfg.precision.
-        from ..ops.pallas_direct import make_direct_spectra
-        interpret = jax.default_backend() != "tpu"
-        return make_direct_spectra(cfg, num_hops, interpret=interpret)(iq)
-
-    def spectra_rdft(iq):
-        # rDFT-recombined bf16 MXU kernel (ops/pallas_rdft, round 5):
-        # half the MXU work of spectra_direct, one HBM pass over frames.
-        from ..ops.pallas_rdft import make_rdft_spectra
-        interpret = jax.default_backend() != "tpu"
-        return make_rdft_spectra(cfg, num_hops, interpret=interpret)(iq)
-
-    spectra = {"xla": spectra_xla, "pallas": spectra_pallas,
-               "fast": spectra_fast, "fastp": spectra_fastp,
-               "direct": spectra_direct, "rdft": spectra_rdft}[backend]
+    spectra = lattice_spectra(cfg, num_hops, backend)
 
     def run(iq):
         fft_add, fft_add_w, h_single = spectra(iq)

@@ -1,7 +1,7 @@
 """Weak-signal demodulator: non-coherent two-copy combining (+3 dB).
 
 Re-expression of the reference weak_demod block (lib/weak_demod_impl.cc) as
-a jitted lax.while_loop FSM, sharing the MXU zoom-DFT ops with the plain
+a jitted lax.while_loop FSM, sharing the zoom-DFT matmul ops with the plain
 demodulator.  The waveform carries every symbol **twice**; each peak search
 sums the folded dechirped-FFT magnitudes of two consecutive symbol periods
 before the argmax (weak_demod_impl.cc:172-194), halving the required SNR.

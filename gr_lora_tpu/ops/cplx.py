@@ -1,8 +1,7 @@
 """Complex arithmetic over real float32 pairs.
 
-The TPU backend in this deployment implements neither complex dtypes nor an
-FFT, so every complex tensor on device is float32 with a trailing dim of 2
-(re, im).  This is also the on-disk layout of gr_complex IQ captures
+Every complex tensor on device is float32 with a trailing dim of 2
+(re, im), so complex products are real matmuls (ops/dft.py).  This is also the on-disk layout of gr_complex IQ captures
 (interleaved float32), so host->device ingestion is a zero-copy reinterpret.
 """
 
@@ -51,12 +50,13 @@ def pack_cmatmul_weights(w_re: np.ndarray, w_im: np.ndarray) -> np.ndarray:
 
 def cmatmul_packed(x: jnp.ndarray, w2: jnp.ndarray, precision=None,
                    compute_dtype=None) -> jnp.ndarray:
-    """[..., N, 2] @ packed [2N, 2M] -> [..., M, 2] as ONE MXU matmul.
+    """[..., N, 2] @ packed [2N, 2M] -> [..., M, 2] as ONE matmul.
 
     One [.., 2N] x [2N, 2M] product replaces the four [.., N] x [N, M]
-    matmuls of the naive complex multiply — bigger, better-utilized MXU
+    matmuls of the naive complex multiply — bigger, better-utilized matmul
     tiles and a single pass over the input.  ``compute_dtype=jnp.bfloat16``
-    casts operands for full-rate MXU issue while accumulating in float32."""
+    casts operands for full-rate tensor-core issue while accumulating in
+    float32."""
     xp = jnp.concatenate([x[..., 0], x[..., 1]], axis=-1)
     if compute_dtype is not None:
         xp = xp.astype(compute_dtype)
@@ -69,9 +69,9 @@ def cmatmul_packed(x: jnp.ndarray, w2: jnp.ndarray, precision=None,
 
 def cmatmul(x: jnp.ndarray, w_re: jnp.ndarray, w_im: jnp.ndarray,
             precision=None, compute_dtype=None) -> jnp.ndarray:
-    """[..., N, 2] @ complex[N, M] -> [..., M, 2] via four real MXU matmuls.
+    """[..., N, 2] @ complex[N, M] -> [..., M, 2] via four real matmuls.
 
-    ``compute_dtype=jnp.bfloat16`` casts operands for full-rate MXU issue
+    ``compute_dtype=jnp.bfloat16`` casts operands for full-rate tensor-core issue
     while accumulating in float32 (preferred_element_type)."""
     xr, xi = x[..., 0], x[..., 1]
     if compute_dtype is not None:

@@ -4,8 +4,7 @@ Shape-static jnp shared by the plain, pyramid and weak demodulators
 (reference hot loops: demod_impl.cc:329-359/162-213,
 pyramid_demod_impl.cc:569-603, weak_demod_impl.cc:146-194).  The dechirp
 multiply, optional Kaiser window, zero-padded FFT and band selection are all
-fused into MXU matmuls by ZoomDftPlan (see ops/dft.py) because this TPU
-backend exposes neither an FFT nor complex dtypes.
+fused into real matmuls by ZoomDftPlan (see ops/dft.py).
 
 Folding conventions (careful — this is a reference landmine, SURVEY.md §7):
 

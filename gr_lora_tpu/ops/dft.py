@@ -1,22 +1,24 @@
-"""Zoom DFT of dechirped frames as MXU matmuls.
+"""Zoom DFT of dechirped frames as matmuls.
 
 The receivers need only two narrow bands of the zero-padded FFT of each
 dechirped symbol window: bins [0, nlo) and [F-nhi, F) of the F-point spectrum
 (F = fft_factor * p * 2^sf), because a dechirped LoRa symbol is a tone inside
 +-bw (reference folding: demod_impl.cc:176, pyramid_demod_impl.cc:596).
-The deployment TPU has no FFT primitive and no complex dtype, so we compute
-those bands directly on the MXU:
+Complex values are float32 (re, im) pairs (ops/cplx.py), and those bands
+are computed directly as real matmuls, which the GPU runs on its tensor
+cores (whether an FFT plus a band slice is faster there is open,
+ROADMAP.md):
 
 - **direct**: one [N, nlo+nhi] complex matrix W[n,k] = v[n] * exp(-2pi*i*n*k/F)
   with the dechirp (and optional window) vector v folded in — dechirp, window,
   zero-padded FFT and band selection fuse into a single complex matmul
-  (4 real MXU matmuls).
+  (4 real matmuls).
 
 - **four-step**: for large N the direct matrix is too big, so use the padded-
   FFT identity X[factor*m + r] = FFT_N(x * tw_r)[m] with tw_r[n] =
   exp(-2pi*i*r*n/F), and evaluate each FFT_N with the four-step Cooley-Tukey
   factorization N = N1*N2 — two small DFT matmuls plus a twiddle, all
-  MXU-shaped.
+  matmul-shaped.
 
 Both paths operate on float32 (re, im) pairs; see ops/cplx.py.
 """
@@ -47,7 +49,7 @@ def _resolve_precision(name: str):
 
 
 def _best_split(n: int) -> tuple[int, int]:
-    """Split n = n1 * n2 with both factors as close to sqrt(n) (and MXU-
+    """Split n = n1 * n2 with both factors as close to sqrt(n) (and matmul-
     friendly) as possible.  n must be even; powers of two expected."""
     best = (1, n)
     for n1 in range(1, int(np.sqrt(n)) + 1):

@@ -1,10 +1,10 @@
 """Wideband channelizer: one SDR stream -> a bank of LoRa channels.
 
 The reference processes a single 125 kHz channel and lists multi-channel
-decoding as future work (reference README.md:45).  A TPU gateway ingests
+decoding as future work (reference README.md:45).  A gateway ingests
 one wideband capture (e.g. 8 Msps = 64 x 125 kHz) and must split it into
-per-channel baseband streams at the demod rate p*bw.  Expressed
-MXU-natively: output sample m of channel c is
+per-channel baseband streams at the demod rate p*bw.  Expressed as
+matmuls: output sample m of channel c is
 
     y[m, c] = phase(m, c) * dot(x[m*D : m*D + W], h .* carrier_c)
 

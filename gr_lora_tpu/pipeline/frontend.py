@@ -6,7 +6,7 @@ bw/2+10 kHz, width 1 kHz, then pfb_arb_resampler with rrate = 2*bw/samp_rate,
 nfilts=32, atten=100) — re-built as jit-able array ops:
 
 - the FIR is a single real-taps convolution over the (re, im) pair, which
-  XLA lowers to MXU-friendly convs;
+  XLA lowers to convolutions;
 - the arbitrary resampler evaluates all output samples at once: one gather
   of input windows + one per-output-phase dot with the polyphase bank, with
   linear interpolation between adjacent phases (the same two-filter

@@ -2,7 +2,7 @@
 
 The GNU Radio runtime connects blocks through lock-free ring buffers with
 one thread per block (SURVEY.md §1 host-framework row).  This is that
-runtime service for the TPU pipeline:
+runtime service for the device pipeline:
 
 - a **producer thread** reads raw complex64 bytes from any file-like source
   (file, fifo, stdin, socket) into the native SPSC ring

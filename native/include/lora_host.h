@@ -1,6 +1,6 @@
 /* C API of the native host-side runtime for gr_lora_tpu.
  *
- * The TPU (JAX/XLA) owns the signal-processing compute; this library owns
+ * The GPU (JAX/XLA) owns the signal-processing compute; this library owns
  * the packet-rate host paths around it, mirroring what the reference keeps
  * in C++ (bit-level codec: encode_impl.cc/decode_impl.cc; stream buffering:
  * the GNU Radio runtime's ring buffers).  Exposed as a flat C ABI for

@@ -1,6 +1,6 @@
 """Full-PHY loopback: encode -> modulate -> demod FSM -> decode, byte-exact.
 
-The TPU analog of the reference's txrx_sim.grc self-test (SURVEY.md section 4.2).
+The JAX analog of the reference's txrx_sim.grc self-test (SURVEY.md section 4.2).
 """
 
 import numpy as np

@@ -1,4 +1,4 @@
-"""Tests for the MXU zoom-DFT, chirp tables and peak search."""
+"""Tests for the zoom-DFT matmul, chirp tables and peak search."""
 
 import jax
 import jax.numpy as jnp

@@ -15,7 +15,7 @@ with BOUNDED host/device memory:
   (models/device_tracker module doc).
 
 The default parameters keep the CPU-mesh runtime in CI range; the real
->= 30 simulated minutes per channel runs on TPU via
+>= 30 simulated minutes per channel runs on the GPU via
 ``python bench.py --mode soak`` (same assertions, gateway scale).
 """
 

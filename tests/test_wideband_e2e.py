@@ -13,87 +13,36 @@ import socket
 import numpy as np
 import pytest
 
-from gr_lora_tpu import LoraConfig
 from gr_lora_tpu.apps.common import UdpPduPort
-from gr_lora_tpu.core.codec import encode
 from gr_lora_tpu.dist.pdu_sink import PduEvent, PduSink
 from gr_lora_tpu.dist.pyramid_gateway import PyramidGateway
 from gr_lora_tpu.dist.triggered import TriggeredReceiver
-from gr_lora_tpu.models.modulator import modulate
-from gr_lora_tpu.pipeline.channelizer import channel_frequencies, channelize
+from gr_lora_tpu.fixtures import (GOLDEN_PDUS, WIDEBAND_COLLISION_CFG,
+                                  WIDEBAND_COLLISION_CH,
+                                  WIDEBAND_SINGLE_BASE, WIDEBAND_SINGLES,
+                                  wideband_capture)
+from gr_lora_tpu.pipeline.channelizer import channelize
 
 FS = 500e3
 SPACING = 125e3
 CHANNELS = 4
 P = 2
 
-PYR_CFG = LoraConfig(sf=8, cr=1, crc=True, ldr=False, explicit_header=True,
-                     payload_len=8, p=P, fft_factor=8, threshold=5.0)
-TRIG_BASE = LoraConfig(sf=7, cr=1, crc=True, ldr=False, explicit_header=True,
-                       payload_len=8, p=P, fft_factor=4)
+PYR_CFG = WIDEBAND_COLLISION_CFG
+TRIG_BASE = WIDEBAND_SINGLE_BASE
 
-PAYLOADS = {
-    # channel: (sf, payload bytes, baseband offset in samples)
-    # NOTE: payloads chosen so the encoded symbol streams have no
-    # adjacent-equal symbols — the Pyramid lattice inherently merges
-    # equal back-to-back apexes into one track (documented limitation,
-    # tests/test_pyramid.py::test_adjacent_equal_symbols_limitation), and
-    # the CLI collision path decodes EVERY channel through the pyramid.
-    # (A 3-byte SF7 payload is impossible here: its explicit HEADER
-    # symbols alone contain a 1,1,1 run.)  The SF7 single sits AFTER the
-    # adjacent-channel collision pair: the pair's spectral skirt on ch0
-    # perturbs raw pyramid apex bins by ±1 (verified: 75 -> 74 on one
-    # symbol when overlapped), which CR 4/5 detects but cannot correct —
-    # the reference tracker has the same exposure.  The SF9 single on the
-    # non-adjacent ch2 keeps full temporal overlap with the collision.
-    0: (7, bytes([0x10, 0x20, 0x30, 0x40]), 26000),
-    2: (9, bytes([0xDE, 0xAD, 0xBE, 0xEF]), 5000),
-}
-COLL_CH = 1
-COLL_P1 = bytes([1, 2, 3, 4, 5, 6])
-COLL_P2 = bytes([7] * 5)
-PDU_1 = "0630f0010203040506050801"
-PDU_2 = "053000" + "07" * 5 + "e76b01"
+# channel: (sf, payload bytes, baseband offset in samples); layout notes
+# in gr_lora_tpu.fixtures.
+PAYLOADS = WIDEBAND_SINGLES
+COLL_CH = WIDEBAND_COLLISION_CH
+PDU_1, PDU_2 = GOLDEN_PDUS
 
 
 def _wideband_fixture(seed=0):
     """Per-channel packets synthesized directly AT the wideband rate
     (modulate supports any p — no upsampling images), mixed to their
     channel slots and summed."""
-    n8 = PYR_CFG.num_samples
-    total_bb = 1000 + 76 * n8
-    up = int(FS / (P * SPACING))          # wideband p = P * up
-    total = total_bb * up
-    pw = P * up
-    rng = np.random.default_rng(seed)
-    freqs = channel_frequencies(CHANNELS, SPACING)
-    t = np.arange(total) / FS
-    wide = np.zeros(total, np.complex64)
-
-    def place(ch, sf, iq_w, off_bb):
-        off = off_bb * up
-        seg = (iq_w * np.exp(2j * np.pi * freqs[ch] * t[off:off + len(iq_w)])
-               ).astype(np.complex64)
-        wide[off:off + len(iq_w)] += seg
-
-    for ch, (sf, payload, off) in PAYLOADS.items():
-        cfg = TRIG_BASE.replace(sf=sf, ldr=(1 << sf) / SPACING > 16e-3)
-        pkt = 0.4 * modulate(encode(payload, cfg), cfg, p=pw,
-                             pad_front=0, pad_back=0)
-        place(ch, sf, pkt, off)
-
-    p1 = 0.4 * modulate(encode(COLL_P1, PYR_CFG), PYR_CFG, p=pw,
-                        pad_front=0, pad_back=0)
-    p2 = 0.18 * modulate(encode(COLL_P2, PYR_CFG), PYR_CFG, p=pw,
-                         pad_front=0, pad_back=0)
-    off2 = 1000 + 16 * n8 + 4 * n8 // 8 + 204
-    place(COLL_CH, 8, p1, 1000)
-    place(COLL_CH, 8, p2, off2)
-
-    wide += 0.01 * (rng.standard_normal(total)
-                    + 1j * rng.standard_normal(total)
-                    ).astype(np.complex64)
-    return wide
+    return wideband_capture(CHANNELS, FS, SPACING, seed=seed)[0]
 
 
 def test_wideband_chain_to_udp():
